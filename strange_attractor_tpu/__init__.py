@@ -1,8 +1,8 @@
-"""TPU-native strange-attractor renderer.
+"""Strange-attractor renderer on JAX.
 
-A brand-new JAX/XLA/Pallas framework with the full capability surface of the
-reference Rust renderer (Icelk/strange-attractor-renderer), re-architected for
-TPU:
+A JAX/XLA framework with the full capability surface of the reference Rust
+renderer (Icelk/strange-attractor-renderer), re-architected for an
+accelerator (an NVIDIA H100 today):
 
 - The chaotic map iterates as a fused ``lax.scan`` over a vmapped batch of
   trajectories ("lanes") instead of per-thread loops

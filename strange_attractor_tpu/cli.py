@@ -1,11 +1,11 @@
 """Command-line interface mirroring the reference binary's flag surface
-(src/bin/main.rs:178-408) plus TPU-specific tuning flags.
+(src/bin/main.rs:178-408) plus accelerator tuning flags.
 
 Deviations from the reference (all documented SURVEY.md §7 fixes):
 
 - ``--single-thread`` is long-only: the reference accidentally declared
   ``-s`` for both ``--scale`` and ``--single-thread`` (main.rs:237/286).
-  Here ``--single-device`` replaces it (thread pools don't exist on TPU);
+  Here ``--single-device`` replaces it (there is no thread pool to size);
   ``--single-thread`` is kept as an alias.
 - ``-a/--angle`` degrees are converted to radians for single frames too; the
   reference's single-frame path passed degrees through unconverted
@@ -31,7 +31,7 @@ from .utils.sequencing import frame_sequence
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="strange-attractor-renderer-tpu",
-        description="TPU-native strange-attractor renderer.",
+        description="Strange-attractor renderer on JAX.",
         add_help=False,
     )
     p.add_argument("--help", action="help", help="Print help")
@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true", help="Run on a single device")
     p.add_argument("--distributed", action="store_true",
                    help="Multi-host rendering: bring up jax.distributed before "
-                        "touching devices (auto-detects TPU pod / SLURM / MPI "
+                        "touching devices (auto-detects SLURM / MPI "
                         "environments; launch the same command on every host). "
                         "Only the primary process writes output files.")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -87,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="This process's index for --coordinator bring-up")
     p.add_argument("-q", "--silent", action="store_true", help="Decrease verbosity")
     p.add_argument("-j", "--jobs-per-thread", dest="jobs_per_thread", type=int, default=None,
-                   help="Accepted for reference-CLI compatibility; TPU work "
+                   help="Accepted for reference-CLI compatibility; device work "
                         "scheduling is static (SPMD lanes), so this has no effect. "
                         "Use --lanes/--chunk-steps to tune instead. Conflicts with "
                         "--single-device, like the reference (main.rs:297-306). "
@@ -102,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Custom palette: semicolon-separated r,g,b stops in [0,1], "
                         "e.g. '1,1,.5;.5,1,.5;1,.5,.5' (default: the reference's "
                         "6-stop table; interpolation clamps + sqrt per channel)")
-    # TPU tuning (no reference counterpart)
+    # accelerator tuning (no reference counterpart)
     p.add_argument("--lanes", type=int, default=None,
                    help="Parallel trajectory lanes (default: auto from iterations)")
     p.add_argument("--chunk-steps", type=int, default=None,
@@ -111,24 +111,21 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "exact", "packed", "depth", "kernel", "exact-kernel",
                             "exact16-kernel", "depth-kernel"],
                    default="auto",
-                   help="Canvas accumulation strategy. 'auto' picks 'kernel' on TPU "
-                        "(sort-bin Pallas pipeline, ~7x 'packed'); kernel/packed "
-                        "quantize depth to ~2^-11 relative and the palette position "
-                        "to 1/4096 — pass 'exact-kernel' for full-f32 "
-                        "reference-faithful accumulation via the same fast pipeline, "
-                        "'exact16-kernel' for the same strict z-test discipline at "
-                        "16-bit z granularity near 'kernel' speed, "
-                        "or 'exact' for the XLA scatter path (see BASELINE.md)")
-    p.add_argument("--kernel-window", dest="kernel_window", type=int, default=None,
-                   help="Canvas rows per apply window in the *_KERNEL binning "
-                        "strategies (default: per-strategy measured optimum; "
-                        "sweep per workload for large canvases)")
+                   help="Canvas accumulation strategy. 'auto' picks 'exact' "
+                        "(full-f32 reference-faithful scatter path); "
+                        "kernel/packed quantize depth to ~2^-11 relative and the "
+                        "palette position to 1/4096 — 'kernel' and the other "
+                        "*-kernel strategies sort each point chunk by pixel "
+                        "before touching the canvas: 'exact-kernel' is "
+                        "full-f32 reference-faithful, 'exact16-kernel' keeps the "
+                        "strict z-test at 16-bit z granularity, 'depth-kernel' "
+                        "accumulates only the z-buffer")
     p.add_argument("--exact16-ties", dest="exact16_ties",
                    choices=["value", "earliest"], default="value",
                    help="exact16-kernel bucket-tie discipline: 'value' (smallest "
-                        "f16 value of the top z bucket; 2-operand sort fast path, "
-                        "~1.4x faster) or 'earliest' (first-emitted, the "
-                        "reference's stream-order rule, via the stable sort)")
+                        "f16 value of the top z bucket; an unstable 2-operand "
+                        "sort) or 'earliest' (first-emitted, the reference's "
+                        "stream-order rule, via a stable or u64-keyed sort)")
     p.add_argument("--seed", type=int, default=None, help="Deterministic RNG seed")
     p.add_argument("--reseed-lanes", dest="reseed_lanes", action="store_true",
                    help="Resurrect trajectory lanes whose orbit escaped to infinity "
@@ -172,9 +169,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "temporal sparkle), each frame bit-identical to a "
                           "single render of that orbit, device memory stays "
                           "bounded by ONE frame's point buffers, and the warm-up "
-                          "+ map loop run once per batch — measured ~45%% faster "
-                          "than per-frame at 1e7 iters/frame on v5e (39.5 vs "
-                          "27.1 frames/s device-side). Needs "
+                          "+ map loop run once per batch. Needs "
                           "--frames-per-batch > 0; on a device mesh each "
                           "frames-row shares one orbit (lanes split across "
                           "the row).")
@@ -281,7 +276,6 @@ def config_from_args(args):
         lanes=args.lanes,
         chunk_steps=args.chunk_steps,
         bin_strategy=BinStrategy(args.bin_strategy),
-        kernel_window=args.kernel_window,
         exact16_ties=args.exact16_ties,
         seed=args.seed,
         reseed_lanes=args.reseed_lanes,
@@ -327,20 +321,15 @@ def _output_base(args) -> Path:
 
 
 def main(argv=None) -> int:
-    from .utils.profiling import force_cpu_if_requested
-
-    force_cpu_if_requested()
-
     parser = build_parser()
     args = parser.parse_args(argv)
     _validate(args, parser)
 
     if getattr(args, "exact16_ties", "value") == "earliest":
         # the earliest-ties discipline rides a packed u64 sort key when
-        # 64-bit types are enabled (ops/kernel_binning.py: 2.07 -> 1.60
-        # ns/pt on v5e); nothing has traced yet, so flipping the flag here
-        # is safe and the f32 render path is x64-clean (the f64 escape
-        # hatch runs the same code; kernels certified by check_kernels --x64)
+        # 64-bit types are enabled (ops/kernel_binning.py); nothing has
+        # traced yet, so flipping the flag here is safe and the f32 render
+        # path is x64-clean (the f64 escape hatch runs the same code)
         import jax
 
         jax.config.update("jax_enable_x64", True)
@@ -462,10 +451,9 @@ def main(argv=None) -> int:
                         config,
                         [a for a, _ in frames],
                         frames_per_batch=args.frames_per_batch,
-                        # deliverable conversion on device: the host fetch of
-                        # a batched sequence dominates on tunneled links, and
-                        # the 8-bit RGB deliverable is 2.7x fewer bytes than
-                        # u16 RGBA
+                        # deliverable conversion on device: the 8-bit RGB
+                        # deliverable is 2.7x fewer bytes to copy to the host
+                        # than u16 RGBA
                         transparent=args.transparent,
                         eight_bit=args.eight_bit,
                     )
@@ -599,10 +587,9 @@ def _render_stateful(args, config, render_mod, state):
     else:
         state = render_mod.render(config, state, on_progress=on_progress)
     # banded delivery (render.colorize_convert_fetch): convert on device
-    # before fetching (2.7x fewer bytes over the device link for the
-    # default 8-bit-opaque case), fetch through the u32-bitcast fast path
-    # (another ~2.7x on narrow dtypes), and overlap each row band's
-    # transfer with the next band's tone-map — bit-identical output
+    # before fetching (2.7x fewer bytes for the 8-bit-opaque case), fetch
+    # through the u32-bitcast path, and overlap each row band's transfer
+    # with the next band's tone-map — bit-identical output
     image = render_mod.colorize_convert_fetch(
         config, state, transparent=args.transparent, eight_bit=args.eight_bit
     )
@@ -613,11 +600,10 @@ def doctor() -> int:
     """Environment self-check: device, oracle agreement, throughput.
 
     The reference has no equivalent; this is the 'is my install sane' path
-    for a framework expected to run on varied TPU/CPU hosts. The 98%
-    visited-pixel agreement bar is a SMOKE threshold (accumulated float
-    divergence over a real orbit is expected); the bit-exactness gates for
-    the binning kernels are tests/test_kernel_binning.py and, on-chip,
-    tools/check_kernels.py.
+    for GPU and CPU hosts. The 98% visited-pixel agreement bar is a SMOKE
+    threshold (accumulated float divergence over a real orbit is
+    expected); the bit-exactness gates for the binning strategies are
+    tests/test_kernel_binning.py and, on the GPU, chip_smoke.py.
     """
     import jax
     import numpy as np
@@ -627,7 +613,7 @@ def doctor() -> int:
     from .oracle import oracle_render
     from .render import colorize, plan_schedule, render, seed_key
     from .utils.native import get_lib
-    from .utils.profiling import RenderProfile, enable_compilation_cache, hard_sync
+    from .utils.profiling import RenderProfile, enable_compilation_cache
 
     enable_compilation_cache()
     ok = True
@@ -659,12 +645,10 @@ def doctor() -> int:
 
     bench_cfg = presets.poisson_saturne(iterations=2_000_000, width=192, height=108, seed=0)
     l, k, n = plan_schedule(bench_cfg)
-    st = render(bench_cfg)  # warm/compile
-    hard_sync(st)
+    jax.block_until_ready(render(bench_cfg))  # warm/compile
     prof = RenderProfile(iterations=l * k * n)
     with prof.phase("render"):
-        st = render(bench_cfg)
-        hard_sync(st)
+        st = jax.block_until_ready(render(bench_cfg))
     with prof.phase("colorize"):
         np.asarray(jax.device_get(colorize(bench_cfg, st)))
     print(f"throughput: {prof.summary()}")

@@ -63,10 +63,9 @@ class PolynomialSprott2Degree:
     def step_xyz(self, x, y, z):
         """Component form of :meth:`step` — the hot-path variant.
 
-        (lanes, 3) arrays tile as (8, 128) on TPU with a 3-wide lane
-        dimension, wasting 125/128 of every VPU op; the render loop keeps
-        x/y/z as separate (lanes,) arrays instead and calls this directly
-        (docs/KERNEL_NOTES.md round-2).
+        The render loop keeps x/y/z as separate (lanes,) arrays, so every
+        elementwise op runs over contiguous lanes with no 3-wide minor
+        dimension, and calls this directly.
         """
         import jax.numpy as jnp
 
@@ -107,7 +106,7 @@ class _RK4Ode:
     ``_deriv_xyz(x, y, z) -> (dx, dy, dz)`` using plain arithmetic (works
     for both jnp and numpy arrays). Provides the protocol ``step``, the
     hot-path ``step_xyz`` (see PolynomialSprott2Degree.step_xyz for why
-    components matter on TPU), and the oracle's ``step_numpy``.
+    the render loop works on components), and the oracle's ``step_numpy``.
     """
 
     def _rk4_xyz(self, x, y, z):

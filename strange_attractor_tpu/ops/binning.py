@@ -1,10 +1,10 @@
-"""Point-stream binning: the TPU replacement for the reference's random
+"""Point-stream binning: the device replacement for the reference's random
 pixel writes (src/lib.rs:807-834).
 
 The reference's hot loop does three random-access read-modify-writes per
 iteration (count increment, z-test, steps/zbuf store) into >2-megapixel
 CPU buffers — the access pattern it names as its own bottleneck
-(src/lib.rs:31-35). On TPU those become device-wide scatter updates applied
+(src/lib.rs:31-35). On the device those become scatter updates applied
 once per *chunk* of ``lanes x chunk_steps`` points:
 
 - EXACT: scatter-add the counts, scatter-max the z-buffer, then recover the

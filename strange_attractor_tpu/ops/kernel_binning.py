@@ -1,74 +1,48 @@
-"""Sort-bin canvas accumulation for TPU (BinStrategy.KERNEL / EXACT_KERNEL).
+"""Sort-bin canvas accumulation (the ``*_KERNEL`` bin strategies).
 
 The reference's hot loop does per-point random-access writes into megapixel
-buffers and names that as its own bottleneck (src/lib.rs:31-35). The XLA
-scatter path (ops/binning.py) hits the TPU scalar-scatter floor of ~8 ns per
-update (docs/KERNEL_NOTES.md). This module replaces the scatters with a
-vectorized pipeline:
+buffers and names that as its own bottleneck (src/lib.rs:31-35). The
+scatter strategies (ops/binning.py) apply one update per point. The
+sort-bin strategies first sort each chunk of emitted points by pixel, so
+that a pixel's points form one contiguous run, and then touch every pixel
+once per run:
 
-1. **Pair sort (XLA)**: each chunk of emitted points is split into sections
-   of ``section`` points and sorted with ``lax.sort`` (stable).
-   Measured on v5e: 2.5-4.5 ns/pt — it beats round 1's hand-rolled Pallas
-   bitonic by ~5x (docs/KERNEL_NOTES.md round-2 table).
-2. **Row apply (Pallas)**: a delta canvas lives in VMEM as
-   (alloc_rows, 128) u32 planes (flat pixel p at [p // 128, p % 128]).
-   Each ``ROW_LANES`` consecutive sorted points form one kernel row; a
-   ``fori_loop`` walks rows with dynamic *sublane* slices (dynamic lane
-   slicing is unsupported — this layout keeps the Mosaic program tiny:
-   ~1 s compiles vs the 255-805 s of round 1's 128-column unroll). Per
-   row, one-hot matrices are built by comparing a sublane iota against
-   lane-broadcast pixel rows, and a single stacked lane-contraction matmul
-   ``dot_general(e_row, [e_col | byte planes...], ((1,), (1,)))`` yields
-   the window's count tile and the winners' byte planes at once. The dot
-   runs in **int8** (v5e's MXU has 2x int8 throughput vs bf16 and the
-   accumulation is exact integer arithmetic): winner bytes are stored
-   *biased by -128* so 0..255 fits the i8 operand range, and the flush
-   adds the bias back wherever its count tile is nonzero — winner
-   presence equals count > 0 because a pixel's whole per-section run
-   lands in one flush (window visits are monotone in sorted order).
-   Mosaic has no vector<i8> elementwise arithmetic, so operands are built
-   in i32 and truncated to i8 only at the dot. Contributions accumulate
-   in an int32 VMEM scratch tile and flush to the delta canvas when the
-   ``WINDOW_ROWS * 128``-pixel window changes, so canvas traffic is ~one
-   sweep per section. Wide rows (K=1024 contraction) amortize per-row
-   costs; small windows shrink the dot's M dimension — both tuned by
-   end-to-end ladders (docs/KERNEL_NOTES.md round-2/3).
-3. **Delta merge (XLA)**: the kernel emits per-chunk *delta* planes
-   (zeroed at grid step 0) folded into the persistent planes with an XLA
-   add/max/z-test. Carrying the canvas through ``input_output_aliases``
-   inside a ``lax.scan`` corrupted planes on real hardware (KERNEL_NOTES);
-   the delta merge costs ~0.06 ns/pt of HBM traffic and is fusable.
+1. **Pair sort**: the chunk is split into sections of ``section`` points
+   and each section is sorted with ``lax.sort`` on (flat pixel, payload).
+   Out-of-bounds points carry ``flat == npix`` and sort to the back.
+2. **Winner marks**: comparing neighbouring sorted pixel keys marks each
+   run's first and last element. A run's count is its length; its winner is
+   the last element where the payload is a max key (KERNEL, DEPTH_KERNEL),
+   and the first where the payload sorts the nearest z first (EXACT_KERNEL,
+   EXACT16_KERNEL).
+3. **Planes**: scatters that touch only the marked elements fold the runs
+   into the planes. Counts and max keys fold straight into the persistent
+   planes (add / max commute). The strict-z tiers fold sections in emission
+   order into per-chunk delta planes, then into the persistent planes with
+   the reference's strict ``z2 > zbuf`` test.
 
 Three winner disciplines share the machinery:
 
-- **KERNEL** (PACKED semantics): points sorted by (flat, packed)
-  ascending; each pixel run's *last* element holds the max packed value,
-  so ``is_end`` marks exactly one point per pixel per section and the byte
-  sums hold the winner's bytes exactly (<= 255 each, exact in bf16/f32).
-  Cross-section/chunk merge is a plain ``maximum``.
-- **EXACT_KERNEL** (reference-faithful semantics): points sorted by
-  (flat, ~mono(z)) ascending — i.e. z *descending* — with the stable sort
-  preserving emission order among exact (flat, z) ties, so each run's
-  *first* element is the strict-greater-z winner with earliest-wins tie
-  behavior, exactly the reference's ``z2 > zbuf`` test (src/lib.rs:818-833)
-  including equal-z duplicates within one chunk (which the XLA scatter
-  path resolves nondeterministically). ``is_start`` marks it; the winner's
-  z-key and f32 value bits ride as byte planes; merges compare z strictly
-  so earlier chunks keep ties.
-
-- **EXACT16_KERNEL**: EXACT_KERNEL's z-test discipline (strict >, stable
-  sort, earliest-wins ties) applied to 16-bit z buckets, with the winner
-  payload packed into ONE u32 (bucket key | f16 value) so the apply runs
-  at KERNEL's 5-block width. Decodes back into full EXACT planes at the
-  chunk merge; precision contract in :func:`bin_chunk_kernel_exact16`.
+- **KERNEL** (PACKED semantics): sections sorted by (flat, packed)
+  ascending; each run's *last* element holds the max packed value. Planes
+  are bit-identical to :func:`ops.binning.bin_chunk_packed`.
+- **EXACT_KERNEL** (reference-faithful semantics): sections stably sorted
+  by (flat, ~mono(z)) — z *descending*, emission order kept among exact
+  (flat, z) ties — so each run's *first* element is the strict-greater-z
+  winner with earliest-wins ties, exactly the reference's ``z2 > zbuf``
+  test (src/lib.rs:818-833), including equal-z duplicates within one chunk
+  (which the XLA scatter path resolves nondeterministically). Across
+  sections a strictly smaller z key wins, so earlier sections keep ties.
+- **EXACT16_KERNEL**: EXACT_KERNEL's z-test discipline at 16-bit z-bucket
+  granularity with the winner payload packed into ONE u32 (bucket key |
+  f16 value); precision contract in :func:`bin_chunk_kernel_exact16`.
+- **DEPTH_KERNEL**: KERNEL's machinery with the monotone-u32 image of z as
+  the max key.
 
 Counts count every point, winners or not — matching the reference's
-unconditional ``count[i,j] += 1`` (src/lib.rs:807-816).
-
-Out-of-bounds points (``flat == npix`` from the step function) are remapped
-to a sentinel pixel inside a garbage window appended after the canvas, so
-they sort last and their bins land in rows that are sliced away — the
-vectorized form of the bounds-check ``continue`` (src/lib.rs:789-795).
+unconditional ``count[i,j] += 1`` (src/lib.rs:807-816). Out-of-bounds
+points are dropped by every scatter — the vectorized bounds-check
+``continue`` (src/lib.rs:789-795).
 """
 
 from __future__ import annotations
@@ -78,521 +52,205 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .binning import _inv_mono_u32, _mono_u32
 
-LANES = 128
-# canvas rows per apply window (= 4096 pixels per flush window). Smaller
-# windows shrink the dot's M dimension and — with the e_row-side byte
-# stacking — every per-point one-hot cell count, at the cost of more
-# window visits. End-to-end ladder at ROW_LANES=1024 (4e8 workload):
-# 128 -> 259M, 64 -> 391.7M, 32 -> 431.8M, 16 -> 424.3M iters/s.
-WINDOW_ROWS = 32
-# points per kernel row: wider rows deepen the dot contraction (K=row
-# lanes) and cut per-row overheads (acc add, winner mask, window
-# reductions, loop trip count); the canvas layout is unaffected because
-# crow/ccol derive from the flat pixel value, not the row shape. The
-# round-2 f32-apply ladder read 1024 best / 2048 tie, but the int8 MXU
-# apply (round 3) halved the per-MAC cost and flipped it: the round-5
-# end-to-end sweep at 1e9 (tools/probe_window.py, docs/KERNEL_NOTES.md)
-# reads (W=32, RL=1024) 540.6M, (32, 2048) 552.8M, (64, 1024) 520.7M,
-# (16, 1024) 519.9M, (64, 2048) 536.0M iters/s — deeper rows now win
-# because the extra window visits cost cheap i8 MACs.
-# SAR_ROW_LANES is a measurement knob for end-to-end geometry sweeps
-# (tools/probe_window.py) — it must be set before first import because the
-# @jax.jit caches of the bin functions do not key on it.
-import os as _os
-
-ROW_LANES = int(_os.environ.get("SAR_ROW_LANES", "2048"))
-DEFAULT_SECTION = 1 << 17
-
-
-def canvas_geometry(npix: int, window_rows: int = WINDOW_ROWS) -> tuple[int, int]:
-    """(alloc_rows, sentinel_flat): canvas rows padded to whole windows plus
-    one garbage window that absorbs out-of-bounds points."""
-    nrows = -(-npix // LANES)
-    alloc_rows = -(-nrows // window_rows) * window_rows + window_rows
-    sentinel = (alloc_rows - window_rows) * LANES
-    return alloc_rows, sentinel
+# Default points per sorted section, measured on the H100 (PERF.md, PR 1):
+# the max-key tiers fold every section in one scatter, so shorter sorts win
+# down to 2^13; the strict-z tiers fold sections one scan step at a time,
+# which costs more than the shorter sorts save below 2^17.
+MAX_KEY_SECTION = 1 << 13
+STRICT_SECTION = 1 << 17
 
 
 def _round_pow2(n: int) -> int:
-    """Largest power of two <= n (sections are whole 128-point rows)."""
-    return 1 << max(7, (n.bit_length() - 1))
+    """Largest power of two <= n (1 for n < 1)."""
+    return 1 << max(0, n.bit_length() - 1)
 
 
-def _winner_mask(f_ref, r, nrows, lane1, rl, *, first: bool):
-    """(f_row, mask): one winner position per pixel run per section.
-
-    ``first=False`` marks the last point of each run (max by ascending
-    sort); ``first=True`` marks the first (max-z + earliest tie by the
-    descending-z stable sort). Row boundaries compare against the adjacent
-    row so the mark stays unique within a section — the scratch SUMS byte
-    planes across rows, so duplicates would corrupt winners. ``rl`` is the
-    row width in points (lanes).
-    """
-    f_row = f_ref[0, pl.ds(r, 1), :]
-    # jnp.int32 shifts: under jax_enable_x64 a python-int shift becomes an
-    # i64 constant, which tpu.dynamic_rotate rejects (i32-only operand);
-    # interpret mode doesn't catch this — only the real Mosaic compile does
-    if first:
-        f_adj = f_ref[0, pl.ds(jnp.maximum(r - 1, 0), 1), :]
-        other = jnp.where(lane1 == 0, pltpu.roll(f_adj, jnp.int32(1), 1),
-                          pltpu.roll(f_row, jnp.int32(1), 1))
-        mask = (f_row != other) | ((lane1 == 0) & (r == 0))
-    else:
-        f_adj = f_ref[0, pl.ds(jnp.minimum(r + 1, nrows - 1), 1), :]
-        nxt = pltpu.roll(f_row, jnp.int32(rl - 1), 1)
-        nxt_adj = pltpu.roll(f_adj, jnp.int32(rl - 1), 1)
-        other = jnp.where(lane1 == rl - 1, nxt_adj, nxt)
-        mask = (f_row != other) | ((lane1 == rl - 1) & (r == nrows - 1))
-    return f_row, mask
-
-
-def _u32_from_bytes(a, off, W, bias):
-    """Recombine 4 accumulated winner byte planes to uint32.
-
-    ``a`` is the (W * n_blocks, 128) int32 scratch; payload bytes live in
-    W-row blocks starting at block ``off`` (block 0 = count). The kernel
-    accumulates winner bytes *biased by -128* so they fit the MXU's int8
-    operand range; ``bias`` is the add-back plane — 128 where this flush saw
-    a winner, 0 elsewhere. Winner-presence equals count > 0 because a
-    pixel's entire per-section point run lands in exactly one flush (sorted
-    window visits are monotone), and every run has its winner mark.
-    """
-    bs = [(a[W * (off + b): W * (off + b + 1), :] + bias).astype(jnp.uint32)
-          for b in range(4)]
-    return (bs[3] << 24) | (bs[2] << 16) | (bs[1] << 8) | bs[0]
-
-
-def _make_apply_kernel(nrows: int, n_payload: int, first: bool, flush_fn, rl: int, w: int,
-                       alloc_rows: int):
-    """Shared row-walk kernel: count + ``n_payload`` byte-decomposed winner
-    payloads, window-scratch accumulation, ``flush_fn(acc_ref, refs, cur)``
-    writing one window back to the delta planes. ``rl`` points per row.
-
-    The winner byte values are folded into the *e_row* side (WINDOW_ROWS
-    sublanes) rather than the e_col side (128 sublanes): the weighted
-    one-hots stack on the dot's M dimension as [e_row | e_row*s_b...], so
-    each per-point one-hot build touches WINDOW_ROWS cells instead of 128
-    and the output tiles land in WINDOW_ROWS-row blocks of the scratch —
-    ~40% fewer VPU cells per point at identical MAC count.
-
-    Sentinel handling (out-of-bounds + evicted points, remapped to the
-    garbage window's first pixel): they sort into a contiguous TAIL of each
-    section, forming all-sentinel uniform rows whose scratch update the
-    uniform branch skips, and the one mixed real/sentinel boundary row
-    clamps its window sweep to the last REAL window — sentinel
-    contributions land only in the garbage window, which the caller slices
-    away, so skipping them is semantics-free. Without the clamp that single
-    row would sweep every window between its real points and the garbage
-    window (hundreds of dots); with pixel-0 flood eviction feeding whole
-    sections of sentinels, both guards together make evicted points cheap
-    in the apply (row load + reductions only). The row walk itself stays a
-    static-bound ``fori_loop`` with the original two-way cond: an early-
-    exit while-loop restructure measured -12% end-to-end on the flagship
-    (Mosaic software-pipelines the static loop; the dynamic trip count
-    defeats that).
-    """
-    n_blocks = 1 + 4 * n_payload
-    W = w
-
-    def kernel(f_ref, *rest):
-        payload_refs = rest[:n_payload]
-        out_refs = rest[n_payload:-1]
-        acc_ref = rest[-1]
-        sub = lax.broadcasted_iota(jnp.int32, (128, rl), 0)
-        subw = lax.broadcasted_iota(jnp.int32, (W, rl), 0)
-        lane1 = lax.broadcasted_iota(jnp.int32, (1, rl), 1)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            for ref in out_refs:
-                ref[:, :] = jnp.zeros_like(ref)
-
-        acc_ref[:, :] = jnp.zeros_like(acc_ref)
-
-        def flush(cur):
-            @pl.when(cur >= 0)
-            def _():
-                flush_fn(acc_ref, out_refs, cur, W)
-                acc_ref[:, :] = jnp.zeros_like(acc_ref)
-
-        subf = lax.broadcasted_iota(jnp.int32, (W * n_blocks, LANES), 0)
-        lanef = lax.broadcasted_iota(jnp.int32, (W * n_blocks, LANES), 1)
-
-        sent = jnp.int32((alloc_rows - W) * LANES)
-
-        def row_body(r, cur):
-            f_row, mask = _winner_mask(f_ref, r, nrows, lane1, rl, first=first)
-            fi = f_row.astype(jnp.int32)
-            fmin = jnp.min(fi)
-            crow = fi >> 7
-            ccol = fi & 127
-            # lax.div, not //: jnp.floor_divide's Mosaic lowering recurses
-            # under jax_enable_x64 (as does a python-int fori bound); both
-            # are equal here since crow >= 0
-            wmin = lax.div(jnp.min(crow), jnp.int32(W))
-            # clamp the sweep to the row's REAL windows: sentinel points
-            # contribute only to the garbage window (sliced away), so mask
-            # them out of the max — a mixed real/sentinel boundary row then
-            # stops at its real top window instead of sweeping every empty
-            # window up to the canvas top. A general row always has >= 1
-            # real point (all-sentinel rows take the uniform path), so the
-            # masked max is >= wmin.
-            wmax = lax.div(jnp.max(jnp.where(fi == sent, jnp.int32(-1), crow)),
-                           jnp.int32(W))
-            maski = mask.astype(jnp.int32)
-            svals = []  # (1, rl) per-point byte values -128, winner-masked
-            for ref in payload_refs:
-                prow = ref[0, pl.ds(r, 1), :]
-                for b in range(4):
-                    vb = ((prow >> (8 * b)) & 255).astype(jnp.int32) - 128
-                    svals.append(vb * maski)
-
-            def general(cur):
-                # i32 build / i8 dot: Mosaic supports no vector<i8>
-                # arithmetic, so everything stays i32 until one trunc right
-                # before the MXU
-                e_col = (sub == ccol).astype(jnp.int32).astype(jnp.int8)
-
-                def win_body(state):
-                    w, cur = state
-
-                    @pl.when(cur != w)
-                    def _():
-                        flush(cur)
-
-                    e_row = (subw == (crow - w * W)).astype(jnp.int32)
-                    estack = jnp.concatenate(
-                        [e_row] + [e_row * s for s in svals], axis=0
-                    ).astype(jnp.int8)  # (n_blocks * W, rl)
-                    out = lax.dot_general(
-                        estack, e_col, (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.int32,
-                    )  # (n_blocks * W, 128)
-                    acc_ref[:, :] += out
-                    return w + 1, w
-
-                _, cur = lax.while_loop(lambda s: s[0] <= wmax, win_body, (wmin, cur))
-                return cur
-
-            def uniform(cur):
-                # Whole row hits ONE pixel (solar-sail's escaped orbits
-                # flooding pixel (0,0), out-of-bounds sentinel rows, hot
-                # attractor pixels): skip the dot entirely. Count gains rl
-                # at the pixel; the winner mark can only sit at the row's
-                # boundary lane (interior lanes compare equal), so the
-                # winner-masked byte values reduce to their lane sum — zero
-                # when the run continues into the next row, in which case a
-                # later row of the same window contributes the mark.
-                #
-                # An ALL-SENTINEL row (fmin == sent) is a uniform row of the
-                # garbage pixel: its contribution is sliced away by the
-                # caller, so skip the scratch update entirely and keep the
-                # current window. With pixel-0 eviction these rows are
-                # 35-40% of a flood-heavy section; the branch sits INSIDE
-                # uniform so non-sentinel rows trace exactly as before (an
-                # outer while/cond restructure measured -12% end-to-end —
-                # Mosaic pipelines the static fori, docs/KERNEL_NOTES.md).
-                def real(cur):
-                    w0 = wmin
-
-                    @pl.when(cur != w0)
-                    def _():
-                        flush(cur)
-
-                    onehot = ((lax.rem(subf, jnp.int32(W)) == (fmin >> 7) - w0 * W)
-                              & (lanef == (fmin & 127))).astype(jnp.int32)
-                    # max+min, not jnp.sum: the winner-masked row has at most
-                    # ONE nonzero value, so max(s)+min(s) == sum(s) — and
-                    # unlike jnp.sum (which routes int32 through an int64
-                    # accumulator under jax_enable_x64, unlowerable by Mosaic)
-                    # the extrema preserve the dtype
-                    blockv = [jnp.int32(rl)] + [jnp.max(s) + jnp.min(s) for s in svals]
-                    vals = jnp.concatenate(
-                        [jnp.full((W, LANES), v, jnp.int32) for v in blockv], axis=0
-                    )
-                    acc_ref[:, :] += onehot * vals
-                    return w0
-
-                return lax.cond(fmin == sent, lambda c: c, real, cur)
-
-            cur = lax.cond(fmin == jnp.max(fi), uniform, general, cur)
-            return cur
-
-        # int32 bounds: under jax_enable_x64, python-int bounds give the
-        # loop an int64 counter, which Mosaic's convert helper cannot lower
-        # (infinite recursion in _convert_helper; found via the f64 path)
-        cur = lax.fori_loop(jnp.int32(0), jnp.int32(nrows), row_body, jnp.int32(-1))
-        flush(cur)
-
-    return kernel, n_blocks
-
-
-def _winner_bias(cnt, W):
-    """128 where this flush saw any point (hence exactly one winner mark),
-    0 elsewhere — the add-back for the i8 bias (see _u32_from_bytes)."""
-    return jnp.where(cnt > 0, jnp.int32(128), jnp.int32(0))
-
-
-def _flush_packed(acc_ref, out_refs, cur, W):
-    cnt_ref, pk_ref = out_refs
-    base = cur * W
-    a = acc_ref[:, :]
-    cnt = a[:W, :]
-    cnt_ref[pl.ds(base, W), :] += cnt.astype(jnp.uint32)
-    pk_new = _u32_from_bytes(a, 1, W, _winner_bias(cnt, W))
-    old = pk_ref[pl.ds(base, W), :]
-    pk_ref[pl.ds(base, W), :] = jnp.where(old < pk_new, pk_new, old)
-
-
-def _flush_exact(acc_ref, out_refs, cur, W):
-    cnt_ref, zd_ref, vb_ref = out_refs
-    base = cur * W
-    a = acc_ref[:, :]
-    cnt = a[:W, :]
-    cnt_ref[pl.ds(base, W), :] += cnt.astype(jnp.uint32)
-    bias = _winner_bias(cnt, W)
-    zd_new = _u32_from_bytes(a, 1, W, bias)  # descending-z key; 0 == no winner
-    vb_new = _u32_from_bytes(a, 5, W, bias)  # winner's f32 value bits
-    zd_old = zd_ref[pl.ds(base, W), :]
-    # smaller nonzero key = greater z; strict < keeps the earlier section's
-    # winner on exact z ties (the reference's z2 > zbuf, src/lib.rs:821)
-    take = (zd_new != 0) & ((zd_old == 0) | (zd_new < zd_old))
-    zd_ref[pl.ds(base, W), :] = jnp.where(take, zd_new, zd_old)
-    vb_old = vb_ref[pl.ds(base, W), :]
-    vb_ref[pl.ds(base, W), :] = jnp.where(take, vb_new, vb_old)
-
-
-def _flush_exact16(acc_ref, out_refs, cur, W):
-    """EXACT16 flush: count plus ONE packed winner plane (descending-z
-    16-bit bucket key in the high half, f16 value bits in the low half).
-    Merge rule mirrors _flush_exact at bucket granularity: a strictly
-    greater z bucket (smaller high-16 key) wins; bucket ties keep the
-    earlier section's winner (grid steps run in emission order)."""
-    cnt_ref, pk_ref = out_refs
-    base = cur * W
-    a = acc_ref[:, :]
-    cnt = a[:W, :]
-    cnt_ref[pl.ds(base, W), :] += cnt.astype(jnp.uint32)
-    pk_new = _u32_from_bytes(a, 1, W, _winner_bias(cnt, W))
-    old = pk_ref[pl.ds(base, W), :]
-    take = (pk_new != 0) & ((old == 0) | ((pk_new >> 16) < (old >> 16)))
-    pk_ref[pl.ds(base, W), :] = jnp.where(take, pk_new, old)
-
-
-def _flush_exact16_val(acc_ref, out_refs, cur, W):
-    """EXACT16 value-ties flush: full u32 compare (bucket key, then f16
-    bit-pattern) so the winner is the smallest f16 value of the top bucket
-    across ALL sections of a chunk, matching the in-section pair-sort
-    order. Cross-chunk bucket ties still keep the standing (earlier) chunk."""
-    cnt_ref, pk_ref = out_refs
-    base = cur * W
-    a = acc_ref[:, :]
-    cnt = a[:W, :]
-    cnt_ref[pl.ds(base, W), :] += cnt.astype(jnp.uint32)
-    pk_new = _u32_from_bytes(a, 1, W, _winner_bias(cnt, W))
-    old = pk_ref[pl.ds(base, W), :]
-    take = (pk_new != 0) & ((old == 0) | (pk_new < old))
-    pk_ref[pl.ds(base, W), :] = jnp.where(take, pk_new, old)
-
-
-def _flush_depth(acc_ref, out_refs, cur, W):
-    """Depth-only flush: the count block still feeds the winner bias, but
-    no count delta plane is allocated or written — a depth render reads
-    nothing but the per-pixel max z (round-2 advisor finding)."""
-    (zm_ref,) = out_refs
-    base = cur * W
-    a = acc_ref[:, :]
-    zm_new = _u32_from_bytes(a, 1, W, _winner_bias(a[:W, :], W))
-    old = zm_ref[pl.ds(base, W), :]
-    zm_ref[pl.ds(base, W), :] = jnp.where(old < zm_new, zm_new, old)
-
-
-def _sections(npix, flat, payloads, section, pad_values, *, stable=True, w=WINDOW_ROWS):
-    """Sentinel-map + pad + section-reshape + sort (keys: flat and the
-    first payload; remaining payloads ride along).
-
-    ``stable=False`` is valid whenever every operand is a key (equal-key
-    elements are then interchangeable) — measured 33% faster on v5e
-    (docs/KERNEL_NOTES.md round-2 ladder). EXACT_KERNEL must stay stable:
-    its earliest-wins z-tie rule rides on emission order among (flat, z)
-    ties (src/lib.rs:818-833)."""
-    alloc_rows, sentinel = canvas_geometry(npix, w)
+def _pad_sections(npix, flat, payloads, section, pad_values):
+    """Pad the chunk to whole sections (pad points are out of bounds) and
+    reshape every array to (S, sec). Sections are powers of two so that the
+    earliest-ties u64 key can hold a within-section emission index."""
     m = flat.size
     sec = min(section, _round_pow2(m))
     pad = (-m) % sec
-    fu = jnp.where(flat == npix, jnp.uint32(sentinel), flat.astype(jnp.uint32))
-    arrays = [fu, *payloads]
+    arrays = [flat.astype(jnp.uint32), *payloads]
     if pad:
         arrays = [
             jnp.concatenate([a, jnp.full((pad,), v, a.dtype)])
-            for a, v in zip(arrays, [jnp.uint32(sentinel), *pad_values])
+            for a, v in zip(arrays, [npix, *pad_values])
         ]
     S = arrays[0].size // sec
-    rl = min(ROW_LANES, sec)
-    R_s = sec // rl
-    arrays = lax.sort(
-        tuple(a.reshape(S, sec) for a in arrays), dimension=1, num_keys=2,
-        is_stable=stable,
-    )
-    return [a.reshape(S, R_s, rl) for a in arrays], S, R_s, rl, alloc_rows
+    return [a.reshape(S, sec) for a in arrays]
 
 
-def _run_apply(sorted_arrays, S, R_s, rl, alloc_rows, *, first, flush_fn, n_out, interpret, w=WINDOW_ROWS):
-    kern, n_blocks = _make_apply_kernel(
-        R_s, len(sorted_arrays) - 1, first, flush_fn, rl, w, alloc_rows
-    )
-    return pl.pallas_call(
-        kern,
-        grid=(S,),
-        # index maps return jnp.int32 zeros: under jax_enable_x64 a literal
-        # 0 traces as an i64 constant and Mosaic rejects the index-map
-        # func.return (i32, i64, i64) — the last x64 lowering trap after
-        # the fori/div/sum/roll ones (docstring history in git)
-        in_specs=[
-            pl.BlockSpec((1, R_s, rl),
-                         lambda i: (i, jnp.int32(0), jnp.int32(0)),
-                         memory_space=pltpu.VMEM)
-        ] * len(sorted_arrays),
-        out_shape=[jax.ShapeDtypeStruct((alloc_rows, LANES), jnp.uint32)] * n_out,
-        out_specs=[
-            pl.BlockSpec((alloc_rows, LANES),
-                         lambda i: (jnp.int32(0), jnp.int32(0)),
-                         memory_space=pltpu.VMEM)
-        ] * n_out,
-        scratch_shapes=[pltpu.VMEM((w * n_blocks, 128), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=110 * 1024 * 1024),
-        interpret=interpret,
-    )(*sorted_arrays)
+def _sections(npix, flat, payloads, section, pad_values, *, stable=True):
+    """Pad + section-reshape + per-section sort (keys: flat and the first
+    payload; remaining payloads ride along).
+
+    ``stable=False`` is valid whenever every operand is a key (equal-key
+    elements are then interchangeable). EXACT_KERNEL must stay stable: its
+    earliest-wins z-tie rule rides on emission order among (flat, z) ties
+    (src/lib.rs:818-833)."""
+    arrays = _pad_sections(npix, flat, payloads, section, pad_values)
+    return list(lax.sort(tuple(arrays), dimension=1, num_keys=2, is_stable=stable))
 
 
-@functools.partial(jax.jit, static_argnames=("npix", "section", "interpret",
-                                             "window", "flood_gate"))
+def _runs(fs, npix):
+    """Run marks of sorted (S, sec) pixel keys: ``(first, last, length)``.
+
+    ``first``/``last`` mark each in-bounds pixel run's first and last
+    element within its section; ``length`` holds, at every element, its
+    1-based position in its run (so the run length at ``last``)."""
+    S, sec = fs.shape
+    differs = fs[:, 1:] != fs[:, :-1]
+    edge = jnp.ones((S, 1), bool)
+    live = fs < jnp.uint32(npix)
+    first = jnp.concatenate([edge, differs], axis=1)
+    last = jnp.concatenate([differs, edge], axis=1)
+    pos = lax.broadcasted_iota(jnp.int32, (S, sec), 1)
+    start = lax.cummax(jnp.where(first, pos, 0), axis=1)
+    return first & live, last & live, pos - start + 1
+
+
+def _at(npix, fs, mark):
+    """Flat scatter indices of the marked elements; ``npix`` (dropped by
+    ``mode="drop"``) elsewhere."""
+    return jnp.where(mark, fs, jnp.uint32(npix)).astype(jnp.int32).reshape(-1)
+
+
+def _add_counts(count, npix, fs, last, length):
+    """Every run adds its length to its pixel's count."""
+    return count.at[_at(npix, fs, last)].add(
+        length.astype(jnp.uint32).reshape(-1), mode="drop")
+
+
+def _strict_less(new, old):
+    """Full-key z rule of the strict tiers: a smaller nonzero key (nearer
+    z) replaces the standing entry; 0 means empty, and equal keys keep the
+    standing (earlier) winner — the reference's ``z2 > zbuf``."""
+    return (new != 0) & ((old == 0) | (new < old))
+
+
+def _strict_less_bucket(new, old):
+    """:func:`_strict_less` on the high 16-bit z-bucket key only (EXACT16
+    earliest ties): a bucket tie keeps the earlier winner."""
+    return (new != 0) & ((old == 0) | ((new >> 16) < (old >> 16)))
+
+
+def _fold_sections(npix, fs, first, payloads, take):
+    """Fold each section's run winners into zeroed per-chunk delta planes,
+    section by section in emission order.
+
+    Within a section every pixel has at most one winner, so the gather of
+    the standing delta key and the set that replaces it touch each pixel
+    once. ``take(new_key, old_key)`` decides on the first payload, which is
+    the key; the others ride along."""
+
+    def step(planes, xs):
+        f, mark, *vals = xs
+        idx = _at(npix, f, mark)
+        old = planes[0].at[idx].get(mode="fill", fill_value=0)
+        idx = jnp.where(take(vals[0], old), idx, npix)
+        return tuple(p.at[idx].set(v, mode="drop") for p, v in zip(planes, vals)), None
+
+    init = tuple(jnp.zeros((npix,), p.dtype) for p in payloads)
+    planes, _ = lax.scan(step, init, (fs, first, *payloads))
+    return planes
+
+
+def _flood_gated(flat, evicted, plain, flood_gate):
+    """Run ``evicted`` on chunks flooded at pixel 0 and ``plain`` otherwise.
+
+    The reference's NaN quirk bins every remaining iteration of an escaped
+    orbit at pixel (0,0) (src/lib.rs:789-812): on a long solar-sail render
+    that is 35-40% of all points, all in one run. Pixel 0's update is a
+    commutative (count += n, max) that two reductions compute directly, so
+    ``evicted`` remaps those points out of bounds before the sort. The
+    gate (> 1/64 of the chunk at pixel 0) keeps quiet chunks on the plain
+    pipeline. Bit-exact either way, for any pixel-0 point, flood or not.
+
+    ``flood_gate=False`` evicts unconditionally (still bit-exact): under
+    ``vmap`` (the batched sequence paths) a data-dependent ``lax.cond``
+    lowers to ``select_n`` and executes BOTH pipelines, so vmapped callers
+    pick one branch statically.
+    """
+    if not flood_gate:
+        return evicted(None)
+    n0 = jnp.sum(flat == 0, dtype=jnp.uint32)
+    return lax.cond(n0 > jnp.uint32(max(1, flat.size // 64)), evicted, plain, None)
+
+
+@functools.partial(jax.jit, static_argnames=("npix", "section", "flood_gate"))
 def bin_chunk_kernel(count, packed, flat, packed_update, *, npix: int,
-                     section: int = DEFAULT_SECTION, interpret: bool = False,
-                     window: int = WINDOW_ROWS, flood_gate: bool = True):
+                     section: int = MAX_KEY_SECTION, flood_gate: bool = True):
     """PACKED-semantics accumulation of one point chunk (KERNEL strategy).
 
     ``count``/``packed`` are the standard flattened (npix,) planes. ``flat``
     is int32 with ``npix`` marking out-of-bounds points; ``packed_update``
     is the uint32 packing of :func:`ops.binning.pack_zv`. Returns updated
     (count, packed) — bit-identical to :func:`ops.binning.bin_chunk_packed`.
-
-    Flood-heavy chunks EVICT pixel 0 before the sort: its whole update is a
-    commutative (count += n, packed = max) that two vector reductions
-    compute directly, so the points are remapped to out-of-bounds and ride
-    the sort as a near-free sentinel tail (see _make_apply_kernel). This is
-    the hot-pixel pathology of the reference's NaN quirk — escaped orbits
-    bin every remaining iteration at pixel (0,0) (src/lib.rs:789-812),
-    35-40% of ALL points on a long solar-sail render (+7% end-to-end
-    there). The eviction is gated at runtime on the chunk's pixel-0 count
-    (> 1/64 of the chunk): its plumbing measured -1.6% on flood-free
-    flagship renders, so quiet chunks take a branch that is op-identical to
-    the ungated pipeline. Bit-exact either way, for any pixel-0 point,
-    flood or legitimate.
-
-    ``flood_gate=False`` evicts UNCONDITIONALLY (still bit-exact): under
-    ``vmap`` (the batched sequence paths) a data-dependent ``lax.cond``
-    lowers to ``select_n`` and executes BOTH branches — two full
-    sort+apply pipelines per chunk per frame — so vmapped callers must
-    pick one branch statically, and always-evict costs only the two
-    pixel-0 reductions.
+    Pixel-0 floods are evicted before the sort (:func:`_flood_gated`).
     """
     is0 = flat == 0
-    n0 = jnp.sum(is0, dtype=jnp.uint32)
 
     def run(f):
-        # both operands are keys: unstable sort is semantics-free, 33% faster
-        sorted_arrays, S, R_s, rl, alloc_rows = _sections(
-            npix, f, [packed_update], section, [jnp.uint32(0)], stable=False,
-            w=window,
-        )
-        dcnt, dpk = _run_apply(
-            sorted_arrays, S, R_s, rl, alloc_rows,
-            first=False, flush_fn=_flush_packed, n_out=2, interpret=interpret,
-            w=window,
-        )
-        return (count + dcnt.reshape(-1)[:npix],
-                jnp.maximum(packed, dpk.reshape(-1)[:npix]))
+        # both operands are keys: an unstable sort is semantics-free
+        fs, ps = _sections(npix, f, [packed_update], section, [0], stable=False)
+        _, last, length = _runs(fs, npix)
+        return (_add_counts(count, npix, fs, last, length),
+                packed.at[_at(npix, fs, last)].max(ps.reshape(-1), mode="drop"))
 
     def evicted(_):
         p0 = jnp.max(jnp.where(is0, packed_update, jnp.uint32(0)))
         c, p = run(jnp.where(is0, jnp.int32(npix), flat))
-        return c.at[0].add(n0), p.at[0].max(p0)
+        return c.at[0].add(jnp.sum(is0, dtype=jnp.uint32)), p.at[0].max(p0)
 
-    def plain(_):
-        return run(flat)
-
-    if not flood_gate:
-        return evicted(None)
-    return lax.cond(n0 > jnp.uint32(max(1, flat.size // 64)), evicted, plain, None)
+    return _flood_gated(flat, evicted, lambda _: run(flat), flood_gate)
 
 
-# EXACT carries 9 scratch blocks (count + 8 winner byte planes); its apply
-# prefers a smaller window than KERNEL's 5 blocks: end-to-end 4e8 sweep
-# W=8 -> 285.5M, 16 -> 303.1M, 32 -> 295.3M, 64 -> 270.0M iters/s
-EXACT_WINDOW_ROWS = 16
-
-
-@functools.partial(jax.jit, static_argnames=("npix", "section", "interpret", "window"))
+@functools.partial(jax.jit, static_argnames=("npix", "section"))
 def bin_chunk_kernel_exact(count, steps, zbuf, flat, z, val, *, npix: int,
-                           section: int = DEFAULT_SECTION, interpret: bool = False,
-                           window: int = EXACT_WINDOW_ROWS):
+                           section: int = STRICT_SECTION):
     """Reference-faithful accumulation (EXACT_KERNEL strategy).
 
     Same planes/semantics as :func:`ops.binning.bin_chunk_exact` — full f32
-    ``steps``/``zbuf``, strict ``z2 > zbuf`` with earlier-wins ties — but
-    ~3.5x faster on TPU, and deterministic for equal-(pixel, z) duplicates
-    within one chunk where the scatter path is not (stable sort keeps
-    emission order).
+    ``steps``/``zbuf``, strict ``z2 > zbuf`` with earlier-wins ties — and
+    deterministic for equal-(pixel, z) duplicates within one chunk where
+    the scatter path is not (stable sort keeps emission order).
     """
     # descending-z ascending key; NaN z arrives as -inf (step fn), whose key
     # is huge but nonzero — only "no winner" encodes as 0. Canonicalize
     # -0.0 -> +0.0 first: the monotone map orders them as distinct keys but
     # the reference's float compare ties them (strict > keeps the earlier
-    # point, verified against a stream with both zero signs on-chip).
+    # point).
     z = jnp.where(z == 0.0, jnp.float32(0.0), z)
     zdesc = ~_mono_u32(z)
     valbits = lax.bitcast_convert_type(val.astype(jnp.float32), jnp.uint32)
-    sorted_arrays, S, R_s, rl, alloc_rows = _sections(
-        npix, flat, [zdesc, valbits], section, [jnp.uint32(0), jnp.uint32(0)],
-        w=window,
-    )
-    dcnt, dzd, dvb = _run_apply(
-        sorted_arrays, S, R_s, rl, alloc_rows,
-        first=True, flush_fn=_flush_exact, n_out=3, interpret=interpret,
-        w=window,
-    )
-    count = count + dcnt.reshape(-1)[:npix]
-    zd = dzd.reshape(-1)[:npix]
+    fs, zs, vs = _sections(npix, flat, [zdesc, valbits], section, [0, 0])
+    first, last, length = _runs(fs, npix)
+    count = _add_counts(count, npix, fs, last, length)
+    zd, vb = _fold_sections(npix, fs, first, [zs, vs], _strict_less)
     z_new = _inv_mono_u32(~zd)
     # strict z-test vs the standing canvas: chunk ties keep the earlier value
     take = (zd != 0) & (z_new > zbuf)
     zbuf = jnp.where(take, z_new, zbuf)
-    steps = jnp.where(
-        take, lax.bitcast_convert_type(dvb.reshape(-1)[:npix], jnp.float32), steps
-    )
+    steps = jnp.where(take, lax.bitcast_convert_type(vb, jnp.float32), steps)
     return count, steps, zbuf
 
 
-@functools.partial(jax.jit, static_argnames=("npix", "section", "interpret", "window",
-                                             "ties"))
+@functools.partial(jax.jit, static_argnames=("npix", "section", "ties"))
 def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, npix: int,
-                             section: int = DEFAULT_SECTION, interpret: bool = False,
-                             window: int = WINDOW_ROWS, ties: str = "value"):
-    """EXACT16_KERNEL: the reference z-test at 16-bit z granularity, at
-    KERNEL's apply width (round-2 VERDICT item 3's "4-byte winner packing").
+                             section: int = STRICT_SECTION, ties: str = "value"):
+    """EXACT16_KERNEL: the reference z-test at 16-bit z granularity, with
+    one u32 winner payload.
 
     Operates on the same (count, steps f32, zbuf f32) planes as EXACT — the
     state, merge, colorize and collective machinery are unchanged — but the
     winner payload inside the pipeline is ONE u32 instead of EXACT_KERNEL's
     two: the high half is the descending image of z's 16-bit mono bucket,
-    the low half the value's f16 bits. 5 scratch blocks instead of 9, the
-    same shape as KERNEL's apply.
+    the low half the value's f16 bits.
 
     Precision contract (documented deviations from EXACT, and the only
     ones — tested in tests/test_exact16.py):
@@ -619,16 +277,13 @@ def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, npix: int,
     ``ties`` picks the deterministic representative among bucket-tied
     points (both are inside the documented quantization deviation — any
     point within one bucket of the true max z can be the winner either
-    way, and neither is EXACT's max-exact-z pick; measured end-to-end
-    1e9 flagship: value 521M, earliest 365M iters/s):
+    way, and neither is EXACT's max-exact-z pick):
 
     - ``"value"`` (default): the smallest f16 bit-pattern of the top
       bucket wins (within a chunk; cross-chunk bucket ties keep the
       earlier chunk), via the unstable PAIR sort on
-      (flat, bucket-key<<16 | f16-value) — XLA's 2-operand sort fast
-      path; a 3rd operand or stability leaves the fused key-value sort
-      path and costs ~0.6 ns/pt on v5e (docs/KERNEL_NOTES.md round 3).
-      The flagship KERNEL/PACKED packing resolves its (finer) z-key ties
+      (flat, bucket-key<<16 | f16-value) — XLA's 2-operand sort. The
+      flagship KERNEL/PACKED packing resolves its (finer) z-key ties
       value-ordered too (max packed, ops/binning.pack_zv), so this
       deviation class is parity-proven at tone-map tolerance.
     - ``"earliest"``: the first-emitted point of the top bucket wins —
@@ -637,11 +292,9 @@ def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, npix: int,
       2-operand UNSTABLE sort on a packed u64 key
       ``flat | bucket | emission-index`` (the emission bits make every
       key unique, so instability is semantics-free) with the f16 value
-      as payload — measured 1.60 ns/pt vs the stable 3-operand sort's
-      2.07 on v5e (tools/probe_u64_sort.py; a u32 repack provably
-      cannot fit: 21 flat + 16 bucket + 19 emission bits = 56).
-      Without x64 (u64 unavailable) it falls back to the stable
-      3-operand sort with the value riding as a u16 operand —
+      as payload; a u32 repack cannot fit (21 flat + 16 bucket + 19
+      emission bits = 56). Without x64 (u64 unavailable) it falls back to
+      the stable 3-operand sort with the value riding as a u16 operand —
       bit-identical results either way (tests/test_exact16.py).
     """
     z = jnp.where(z == 0.0, jnp.float32(0.0), z.astype(jnp.float32))
@@ -654,71 +307,40 @@ def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, npix: int,
     if ties == "value":
         pk4 = jnp.where(sk == jnp.uint32(0xFFFF), jnp.uint32(0xFFFF) << 16,
                         (sk << 16) | val16)
-        sorted_arrays, S, R_s, rl, alloc_rows = _sections(
-            npix, flat, [pk4], section, [jnp.uint32(0xFFFF) << 16],
-            stable=False, w=window,
-        )
-        f, pk4_s = sorted_arrays
-        packed4 = jnp.where(pk4_s >> 16 == jnp.uint32(0xFFFF), jnp.uint32(0),
-                            pk4_s)
+        f, pk4_s = _sections(npix, flat, [pk4], section, [0xFFFF << 16], stable=False)
+        packed4 = jnp.where(pk4_s >> 16 == jnp.uint32(0xFFFF), jnp.uint32(0), pk4_s)
     else:
         assert ties == "earliest", ties
-        alloc_rows, sentinel = canvas_geometry(npix, window)
         sec = min(section, _round_pow2(flat.size))
         ebits = sec.bit_length() - 1
-        if jax.config.jax_enable_x64 and sentinel.bit_length() + 16 + ebits <= 64:
+        if jax.config.jax_enable_x64 and npix.bit_length() + 16 + ebits <= 64:
             # u64 fast path: one unique key per point (flat | bucket |
-            # within-section emission index) rides XLA's 2-operand
-            # key-value sort fast path unstably; uniqueness makes the
-            # order total, so the result is bit-identical to the stable
-            # 3-operand fallback below (measured 2.07 -> 1.60 ns/pt)
-            m = flat.size
-            pad = (-m) % sec
-            fu = jnp.where(flat == npix, jnp.uint32(sentinel),
-                           flat.astype(jnp.uint32))
-            sku = sk
-            if pad:
-                fu = jnp.concatenate([fu, jnp.full((pad,), sentinel, jnp.uint32)])
-                sku = jnp.concatenate([sku, jnp.full((pad,), 0xFFFF, jnp.uint32)])
-                val16 = jnp.concatenate([val16, jnp.zeros((pad,), jnp.uint16)])
-            S = fu.size // sec
-            rl = min(ROW_LANES, sec)
-            R_s = sec // rl
-            emission = lax.broadcasted_iota(jnp.uint64, (S, sec), 1)
-            key = (
-                (fu.reshape(S, sec).astype(jnp.uint64) << (16 + ebits))
-                | (sku.reshape(S, sec).astype(jnp.uint64) << ebits)
-                | emission
-            )
-            key, v16_s = lax.sort(
-                (key, val16.reshape(S, sec)), dimension=1, num_keys=1,
-                is_stable=False,
-            )
-            f = (key >> (16 + ebits)).astype(jnp.uint32).reshape(S, R_s, rl)
+            # within-section emission index) sorts unstably through XLA's
+            # 2-operand sort; uniqueness makes the order total, so the
+            # result is bit-identical to the stable 3-operand fallback below
+            fu, sku, v16 = _pad_sections(npix, flat, [sk, val16], section,
+                                         [0xFFFF, 0])
+            emission = lax.broadcasted_iota(jnp.uint64, fu.shape, 1)
+            key = ((fu.astype(jnp.uint64) << (16 + ebits))
+                   | (sku.astype(jnp.uint64) << ebits) | emission)
+            key, v16_s = lax.sort((key, v16), dimension=1, num_keys=1,
+                                  is_stable=False)
+            f = (key >> (16 + ebits)).astype(jnp.uint32)
             sk_s = ((key >> ebits) & jnp.uint64(0xFFFF)).astype(jnp.uint32)
-            packed4 = jnp.where(
-                sk_s == jnp.uint32(0xFFFF), jnp.uint32(0),
-                (sk_s << 16) | v16_s.astype(jnp.uint32),
-            ).reshape(S, R_s, rl)
         else:
-            sorted_arrays, S, R_s, rl, alloc_rows = _sections(
-                npix, flat, [sk.astype(jnp.uint16), val16], section,
-                [jnp.uint16(0xFFFF), jnp.uint16(0)], w=window,
-            )
-            f, sk_s, v16_s = sorted_arrays
-            packed4 = jnp.where(sk_s == jnp.uint16(0xFFFF), jnp.uint32(0),
-                                (sk_s.astype(jnp.uint32) << 16) | v16_s.astype(jnp.uint32))
+            f, sk_s, v16_s = _sections(npix, flat, [sk.astype(jnp.uint16), val16],
+                                       section, [0xFFFF, 0])
+            sk_s = sk_s.astype(jnp.uint32)
+        packed4 = jnp.where(sk_s == jnp.uint32(0xFFFF), jnp.uint32(0),
+                            (sk_s << 16) | v16_s.astype(jnp.uint32))
     # 0 == "no winner" (a live sk is never 0: that would need
     # mono(z) >= 0xFFFF0000, beyond float32's finite range)
-    dcnt, dpk = _run_apply(
-        [f, packed4], S, R_s, rl, alloc_rows,
-        first=True,
-        flush_fn=_flush_exact16_val if ties == "value" else _flush_exact16,
-        n_out=2, interpret=interpret,
-        w=window,
-    )
-    count = count + dcnt.reshape(-1)[:npix]
-    pk = dpk.reshape(-1)[:npix]
+    first, last, length = _runs(f, npix)
+    count = _add_counts(count, npix, f, last, length)
+    # value ties compare the full u32 (bucket, then f16 bits): the smallest
+    # f16 value of the top bucket across ALL sections of a chunk
+    rule = _strict_less if ties == "value" else _strict_less_bucket
+    (pk,) = _fold_sections(npix, f, first, [packed4], rule)
     # decode: bucket lower edge (monotone + idempotent), f16 value bits
     z_q = _inv_mono_u32((~(pk >> 16) & jnp.uint32(0xFFFF)) << 16)
     take = (pk != 0) & (z_q > zbuf)
@@ -730,58 +352,35 @@ def bin_chunk_kernel_exact16(count, steps, zbuf, flat, z, val, *, npix: int,
     return count, steps, zbuf
 
 
-@functools.partial(jax.jit, static_argnames=("npix", "section", "interpret",
-                                             "window", "flood_gate"))
+@functools.partial(jax.jit, static_argnames=("npix", "section", "flood_gate"))
 def bin_chunk_kernel_depth(zbuf, flat, z, *, npix: int,
-                           section: int = DEFAULT_SECTION, interpret: bool = False,
-                           window: int = WINDOW_ROWS, flood_gate: bool = True):
+                           section: int = MAX_KEY_SECTION, flood_gate: bool = True):
     """DEPTH-semantics accumulation through the sort-bin pipeline.
 
     A depth render needs only the per-pixel max z (src/lib.rs:875-899 reads
-    nothing else). The PACKED machinery runs unchanged with the winner key
-    set to the monotone-u32 image of z: the per-pixel run max IS the max
-    depth, and the chunk merge is a plain ``maximum``. ~3x the scatter
-    DEPTH path on v5e (one scatter still costs ~8 ns/pt serially).
+    nothing else). KERNEL's machinery runs with the winner key set to the
+    monotone-u32 image of z: the per-pixel run max IS the max depth.
 
     ``zbuf`` is the flattened (npix,) f32 plane with the -1.0 sentinel
     (src/lib.rs:693); mono keys are compared in u32 space and mapped back,
-    which preserves the sentinel exactly (the map is a bijection). A delta
-    key of 0 means "no visit" and corresponds to -NaN, which the step
-    function can never emit (NaN z is canonicalized to -inf), so it never
-    beats any standing value.
+    which preserves the sentinel exactly (the map is a bijection). A key of
+    0 corresponds to -NaN, which the step function can never emit (NaN z
+    is canonicalized to -inf), so it never beats any standing value.
+    Pixel-0 floods are evicted before the sort (:func:`_flood_gated`).
     """
     # canonicalize zero sign: the monotone map splits -0.0 / +0.0 into
     # adjacent keys while the reference's float compare ties them
     z = jnp.where(z == 0.0, jnp.float32(0.0), z.astype(jnp.float32))
     zm = _mono_u32(z)
     is0 = flat == 0
-    n0 = jnp.sum(is0, dtype=jnp.uint32)
 
-    def run(f, fix):
-        sorted_arrays, S, R_s, rl, alloc_rows = _sections(
-            npix, f, [zm], section, [jnp.uint32(0)], stable=False, w=window,
-        )
-        (dzm,) = _run_apply(
-            sorted_arrays, S, R_s, rl, alloc_rows,
-            first=False, flush_fn=_flush_depth, n_out=1, interpret=interpret,
-            w=window,
-        )
-        zm_old = _mono_u32(zbuf)
-        return (_inv_mono_u32(jnp.maximum(zm_old, fix(dzm.reshape(-1)[:npix]))),)
+    def run(f):
+        fs, zs = _sections(npix, f, [zm], section, [0], stable=False)
+        _, last, _ = _runs(fs, npix)
+        return _mono_u32(zbuf).at[_at(npix, fs, last)].max(zs.reshape(-1), mode="drop")
 
     def evicted(_):
-        # flood-gated pixel-0 eviction (see bin_chunk_kernel): the flood
-        # points' mono keys reduce in one vector max; 0 is the "no visit"
-        # key, so it never beats a standing value
         zm0 = jnp.max(jnp.where(is0, zm, jnp.uint32(0)))
-        return run(jnp.where(is0, jnp.int32(npix), flat),
-                   lambda d: d.at[0].max(zm0))
+        return run(jnp.where(is0, jnp.int32(npix), flat)).at[0].max(zm0)
 
-    def plain(_):
-        return run(flat, lambda d: d)
-
-    if not flood_gate:
-        # vmapped callers: a batched cond would run BOTH pipelines
-        # (see bin_chunk_kernel); always-evict is bit-exact
-        return evicted(None)
-    return lax.cond(n0 > jnp.uint32(max(1, flat.size // 64)), evicted, plain, None)
+    return (_inv_mono_u32(_flood_gated(flat, evicted, lambda _: run(flat), flood_gate)),)

@@ -1,7 +1,7 @@
 """CPU numpy oracle: a direct transcription of the reference's hot loop.
 
 The reference ships with essentially no tests (SURVEY.md §4); this module is
-the substitute ground truth the TPU renderer is validated against. It
+the substitute ground truth the JAX renderer is validated against. It
 replicates the semantics of ``render`` (src/lib.rs:747-838), ``Runtime::merge``
 (src/lib.rs:708-738) and ``colorize`` (src/lib.rs:841-904) point-for-point,
 including:

@@ -1,22 +1,22 @@
-"""Multi-host (multi-process) rendering over DCN + ICI.
+"""Multi-host (multi-process) rendering.
 
 The reference is strictly single-process (its "distributed backend" is std
-threads + channels, src/lib.rs:906-1031 — SURVEY.md §5). The TPU-native
-scale-out story has two tiers:
+threads + channels, src/lib.rs:906-1031 — SURVEY.md §5). Scale-out here
+has two tiers:
 
-- **single host, many chips**: ``parallel.mesh.render_sharded`` over the
-  local devices (collective canvas merge over ICI). Nothing here needed.
-- **many hosts (TPU pod slices / CPU test rigs)**: every process runs the
+- **single host, many devices**: ``parallel.mesh.render_sharded`` over the
+  local devices (collective canvas merge). Nothing here needed.
+- **many processes (GPU hosts / CPU test rigs)**: every process runs the
   same program under ``jax.distributed``; the lanes mesh spans the *global*
   device list, ``shard_map`` + the same ``psum``/``pmax`` merge run the
-  cross-host legs over DCN, and every process ends up holding a replicated
+  cross-process legs, and every process ends up holding a replicated
   copy of the merged canvas (fetch/export on the primary only).
 
 Usage (same script launched once per host/process)::
 
     from strange_attractor_tpu.parallel import distributed as dist
 
-    dist.initialize()                  # auto on TPU pods; explicit on CPU
+    dist.initialize(coord, nproc, pid)  # or auto under SLURM / MPI
     state = dist.render_distributed(config)
     if dist.is_primary():
         image = colorize(config, state)
@@ -43,15 +43,16 @@ def initialize(
 ) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    On TPU pods all arguments auto-detect from the environment; on CPU/GPU
-    rigs pass them explicitly. For CPU meshes the gloo collectives backend
+    Under a cluster manager JAX knows (SLURM, Open MPI) all arguments
+    auto-detect from the environment; elsewhere pass them explicitly. For
+    CPU meshes the gloo collectives backend
     is selected when available (required for cross-process psum/pmax).
     """
     if getattr(initialize, "_done", False):
         return
     # NOTE: nothing here may touch the XLA backend (jax.devices,
     # jax.default_backend, ...) before jax.distributed.initialize.
-    try:  # cross-process CPU collectives need gloo (no effect on TPU)
+    try:  # cross-process CPU collectives need gloo (no effect on GPUs)
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:  # pragma: no cover - older jax
         pass

@@ -2,12 +2,12 @@
 
 The reference scales with a thread pool + channels + a work-stealing atomic
 counter (src/lib.rs:906-1031) and merges per-thread canvases on the main
-thread (src/lib.rs:1068-1076). The TPU equivalents:
+thread (src/lib.rs:1068-1076). The device equivalents:
 
 - **lanes axis (data parallel)**: trajectory lanes shard across devices via
   ``shard_map``; every device accumulates a private canvas — the analog of a
   per-thread ``Runtime`` — entirely on device.
-- **merge = collectives over ICI**: ``psum`` for the visit counts and a
+- **merge = collectives between devices**: ``psum`` for the visit counts and a
   max-by-key reduction for the depth/color planes, replacing the reference's
   O(W*H*threads) sequential merge loop. PACKED states need a single
   ``pmax``; EXACT states resolve the winning device per pixel with
@@ -29,13 +29,8 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-if hasattr(jax, "shard_map"):  # jax >= 0.4.35
-    shard_map = jax.shard_map
-else:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..config import BinStrategy, Config
 from ..runtime import RenderState
@@ -95,19 +90,10 @@ def _local_render_fn(
     """Build the per-device render body (runs inside ``shard_map``): a plain
     single-canvas render with a device-unique key, merged collectively.
     ``vmapped=True`` when the body is additionally vmapped over frames
-    (render_sequence_sharded) — see render._bin_fn's flood-gate note.
-
-    The config is pinned to the PER-DEVICE schedule before building the
-    body: the sort-bin section rule (section = chunk/8, config.py
-    resolved_kernel_section) must see the local lanes — with the unsplit
-    config an 8-device mesh would size sections for the global 4M-point
-    chunk while each device actually bins 512K-point chunks, running the
-    sort well off its measured operating point (and disagreeing with the
-    _sharded_cache_key fingerprint, which pins the local values)."""
+    (render_sequence_sharded) — see render._bin_fn's flood-gate note."""
     from ..render import _canvas_body
 
-    local = config.replace(lanes=lanes, chunk_steps=chunk_steps)
-    canvas = _canvas_body(local, strategy, lanes, chunk_steps, nchunks, vmapped=vmapped)
+    canvas = _canvas_body(config, strategy, lanes, chunk_steps, nchunks, vmapped=vmapped)
 
     def body(key, cos_v, sin_v):
         key = jax.random.fold_in(key, lax.axis_index(axis))
@@ -134,7 +120,7 @@ def render_sharded(config: Config, devices=None, key=None, *,
                    state: RenderState | None = None,
                    on_progress=None) -> RenderState:
     """Render with trajectory lanes sharded over every device; returns the
-    merged (replicated) state. TPU analog of ``render_parallel``
+    merged (replicated) state. Device analog of ``render_parallel``
     (src/lib.rs:1051-1082). Compiled programs are cached (angle is a traced
     argument), so per-frame calls don't recompile.
 
@@ -161,7 +147,7 @@ def render_sharded(config: Config, devices=None, key=None, *,
 
     mesh = lanes_mesh(devices)
     ndev = mesh.devices.size
-    resolved = config.resolved_bin_strategy(jax.default_backend())
+    resolved = config.resolved_bin_strategy()
     if state is None:
         strategy = resolved
     else:
@@ -233,10 +219,7 @@ def _render_sharded_grouped(
     from ..runtime import merge
 
     devices = mesh.devices.flat
-    local = config.replace(lanes=lanes_local, chunk_steps=chunk_steps)
-    init_local, run_local = _canvas_stepper(
-        local, strategy, lanes_local, chunk_steps
-    )
+    init_local, run_local = _canvas_stepper(config, strategy, lanes_local, chunk_steps)
     npix = config.width * config.height
     shape = (config.height, config.width)
 
@@ -410,7 +393,7 @@ def render_sequence_sharded(
     lane_axis = ndev // frame_axis
     mesh = Mesh(np.array(devices).reshape(frame_axis, lane_axis), ("frames", "lanes"))
 
-    strategy = config.resolved_bin_strategy(jax.default_backend())
+    strategy = config.resolved_bin_strategy()
     lanes_total, chunk_steps, nchunks = plan_schedule(config)
     lanes_local = _split_lanes(config, lanes_total, lane_axis)
 
@@ -460,10 +443,8 @@ def render_sequence_sharded(
     def _colorize_flat(*pl):
         st = planes_to_state(pl, strategy, (config.height, config.width))
         img = colorize_planes(config, *state_planes(st))
-        # deliverable conversion on device + flat per-frame output:
-        # a (F, H, W, 4) u16 batch pads the 4-wide minor dim to 128
-        # under TPU tiling (32x the bytes — see
-        # render_sequence_batched); host reshapes back
+        # deliverable conversion on device + flat per-frame output; the
+        # host reshapes back
         img = convert_format_device(img, transparent, eight_bit)
         # DEPTH wire reduction (render._wire_channels): 3x fewer bytes
         return _slice_wire(img, wire, full).reshape(-1)
@@ -471,10 +452,7 @@ def render_sequence_sharded(
     if fn is None and orbit == "shared":
         from ..render import _canvas_body_shared
 
-        # pin the PER-DEVICE schedule like _local_render_fn (section sizing
-        # must see the local lanes)
-        local = config.replace(lanes=lanes_local, chunk_steps=chunk_steps)
-        canvas = _canvas_body_shared(local, strategy, lanes_local, chunk_steps,
+        canvas = _canvas_body_shared(config, strategy, lanes_local, chunk_steps,
                                      nchunks)
 
         def frames_body(key, cos_f, sin_f):

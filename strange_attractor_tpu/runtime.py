@@ -1,4 +1,4 @@
-"""Accumulator state: the TPU equivalent of the reference's ``Runtime``.
+"""Accumulator state: the device-side equivalent of the reference's ``Runtime``.
 
 The reference keeps three mutable textures plus a running max
 (src/lib.rs:631-646): ``count`` (u32 visits), ``steps`` (f64 color value at
@@ -76,10 +76,8 @@ class RenderState(NamedTuple):
     def create(cls, config: Config, strategy: Optional[BinStrategy] = None) -> "RenderState":
         """Fresh zeroed state (reference ``Runtime::new`` + ``reset``,
         src/lib.rs:660-699: count 0, steps 0.0, zbuf -1.0)."""
-        import jax
-
         if strategy is None or strategy == BinStrategy.AUTO:
-            strategy = config.resolved_bin_strategy(jax.default_backend())
+            strategy = config.resolved_bin_strategy()
         return cls.blank((config.height, config.width), strategy)
 
     def set_width_height(self, width: int, height: int) -> "RenderState":

@@ -111,7 +111,7 @@ def png_filter_adaptive(rows, bpp: int, threads: Optional[int] = None):
     returns the h*(1+stride) filtered byte stream (filter byte + row each),
     byte-identical to export._filter_scanlines' numpy path (the fallback
     and test reference). C speed matters because the filter — not deflate —
-    is the warm 1080p encode floor (docs/KERNEL_NOTES.md).
+    is the larger cost of a warm 1080p encode.
     """
     lib = get_lib()
     if lib is None:

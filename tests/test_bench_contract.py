@@ -1,6 +1,6 @@
-"""Driver-contract smoke tests: bench.py must always print one valid JSON
-line with the required keys (the round driver records it), and the graft
-entry module must expose the expected callables."""
+"""Contract smoke tests: bench.py must print one valid JSON line with the
+required keys and the device it ran on, and the graft entry module must
+expose the expected callables."""
 
 import json
 import os
@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_bench_json_contract():
     env = dict(os.environ)
     env["BENCH_ITERS"] = "60000"
-    env["JAX_PLATFORM_NAME"] = "cpu"  # this (old) var IS honored by the plugin
+    env["JAX_PLATFORMS"] = "cpu"  # the explicit CPU rehearsal
     out = subprocess.run(
         [sys.executable, str(ROOT / "bench.py")],
         capture_output=True, text=True, timeout=900, env=env, cwd=str(ROOT),
@@ -22,10 +22,11 @@ def test_bench_json_contract():
     assert out.returncode == 0, out.stderr[-2000:]
     line = out.stdout.strip().splitlines()[-1]
     data = json.loads(line)
-    for key in ("metric", "value", "unit", "vs_baseline"):
+    for key in ("metric", "value", "unit", "device", "wall_s", "solar_sail"):
         assert key in data, data
-    assert data["metric"] == "map iterations/sec/chip"
-    assert data["value"] > 0 and data["vs_baseline"] > 0
+    assert data["metric"] == "map iterations/sec"
+    assert data["value"] > 0 and data["solar_sail"]["value"] > 0
+    assert data["device"]["platform"] == "cpu" and data["device"]["count"] >= 1
 
 
 def test_graft_entry_exposes_contract():

@@ -6,9 +6,6 @@ from the rider; later calls crop to the cached bbox and re-verify via their
 own rider, falling back to the full fetch on any mismatch. Every test here
 pins the assembled frame byte-identical to the unbanded colorize + convert
 reference across combos, cache states, and adversarial (poisoned) caches.
-
-Measured basis: the flagship frame's lit bbox is 59.7% of the canvas and
-stable from 1e6 to 1e9 iterations (tools/probe_bbox.py, TPU 2026-08-19).
 """
 
 from __future__ import annotations

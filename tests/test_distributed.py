@@ -13,6 +13,7 @@ import json
 import socket
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -72,7 +73,7 @@ def _run_workers(worker_src: str, extra_args, timeout: int = 600):
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,
-                cwd="/root/repo",
+                cwd=str(Path(__file__).resolve().parent.parent),
             )
             for i in range(2)
         ]

@@ -14,6 +14,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
 
 _WORKER = r'''
 import jax
@@ -46,9 +49,8 @@ visited = (count > 0) | (oc > 0)
 agree = float((count == oc)[visited].mean()) if visited.any() else 1.0
 zb = np.asarray(st.zbuf)
 
-# the sort-bin pipeline must also work under x64 (interpret mode here; the
-# Mosaic i64-loop-counter regression is covered on-chip by bench/check):
-# identical trajectories => identical counts
+# the sort-bin pipeline must also work under x64: identical trajectories
+# => identical counts
 st_k = render(cfg.replace(bin_strategy=BinStrategy.KERNEL), key=key)
 kernel_counts_equal = bool((np.asarray(st_k.count) == count).all())
 
@@ -64,7 +66,7 @@ print("RESULT " + json.dumps({
 def test_f64_render_matches_f64_oracle():
     proc = subprocess.run(
         [sys.executable, "-c", _WORKER],
-        capture_output=True, text=True, timeout=600, cwd="/root/repo",
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]

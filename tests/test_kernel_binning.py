@@ -1,7 +1,7 @@
 """KERNEL / EXACT_KERNEL sort-bin pipelines vs the sequential oracle.
 
-Runs the Pallas apply in interpreter mode on the CPU backend (the real-TPU
-compiled path is exercised by tools/check_kernels.py and bench.py); the
+The same lax code runs here on the CPU backend and on the GPU (where
+chip_smoke.py and bench.py compare it with the oracle at full width); the
 binning semantics — count every in-bounds point, packed plane takes the
 per-pixel max, EXACT planes follow the strict z-test with earliest-wins
 ties, out-of-bounds dropped — must be bit-exact on injected streams.
@@ -27,7 +27,7 @@ def _run_kernel(npix, flat, packed, section=1 << 10, state=None):
         cnt, pk,
         jnp.asarray(flat, jnp.int32),
         jnp.asarray(packed, jnp.uint32),
-        npix=npix, section=section, interpret=True,
+        npix=npix, section=section,
     )
 
 
@@ -43,7 +43,7 @@ def _run_exact(npix, flat, z, val, section=1 << 10, state=None):
         jnp.asarray(flat, jnp.int32),
         jnp.asarray(z, jnp.float32),
         jnp.asarray(val, jnp.float32),
-        npix=npix, section=section, interpret=True,
+        npix=npix, section=section,
     )
 
 
@@ -281,15 +281,6 @@ def test_kernel_resumes_packed_state():
     assert int(st2.count.sum()) > int(st1.count.sum())
 
 
-def test_canvas_geometry():
-    for npix in (35, 128 * 128, 1920 * 1080, 1800 * 2000):
-        alloc_rows, sentinel = kb.canvas_geometry(npix)
-        assert alloc_rows * kb.LANES >= npix
-        assert sentinel >= npix
-        assert alloc_rows % kb.WINDOW_ROWS == 0
-        assert sentinel == (alloc_rows - kb.WINDOW_ROWS) * kb.LANES
-
-
 def test_depth_kernel_matches_scatter_depth():
     """DEPTH_KERNEL == scatter DEPTH max-z per pixel, incl. zero signs."""
     import numpy as np
@@ -309,7 +300,6 @@ def test_depth_kernel_matches_scatter_depth():
     (ref,) = binning.bin_chunk_depth(zbuf0, jnp.asarray(flat), jnp.asarray(z))
     (got,) = kb.bin_chunk_kernel_depth(
         zbuf0, jnp.asarray(flat), jnp.asarray(z), npix=npix, section=1 << 10,
-        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
@@ -319,47 +309,21 @@ def test_depth_kernel_matches_scatter_depth():
     (ref2,) = binning.bin_chunk_depth(ref, jnp.asarray(flat2), jnp.asarray(z2))
     (got2,) = kb.bin_chunk_kernel_depth(
         got, jnp.asarray(flat2), jnp.asarray(z2), npix=npix, section=1 << 10,
-        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(got2), np.asarray(ref2))
 
 
-@pytest.mark.parametrize("window", [8, 16, 32, 64])
-def test_window_parameterization_exact(window):
-    """Any window height yields identical planes (canvas geometry, scratch
-    blocks, and flush slicing all derive from it)."""
-    import jax.numpy as jnp
-
-    from strange_attractor_tpu.ops import binning, kernel_binning as kb
-
-    rng = np.random.default_rng(window)
-    npix = 96 * 54
-    n = 4096
-    flat = rng.integers(0, npix + 1, n).astype(np.int32)
-    packed = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-    c0 = jnp.zeros((npix,), jnp.uint32)
-    p0 = jnp.zeros((npix,), jnp.uint32)
-    ref_c, ref_p = binning.bin_chunk_packed(c0, p0, jnp.asarray(flat), jnp.asarray(packed))
-    got_c, got_p = kb.bin_chunk_kernel(
-        c0, p0, jnp.asarray(flat), jnp.asarray(packed),
-        npix=npix, section=1 << 10, interpret=True, window=window,
-    )
-    np.testing.assert_array_equal(np.asarray(got_c), np.asarray(ref_c))
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(ref_p))
-
-
 def test_kernel_uniform_rows_fast_path():
-    """Rows where every point hits ONE pixel take the no-dot fast path
-    (round-3): floods spanning many whole rows, with the run's winner mark
-    landing in a later row, must stay bit-exact — including when the flood
-    pixel's window differs from its neighbors'."""
+    """Floods of one pixel that fill whole sections, with ragged edges, so
+    runs span section boundaries and the run length carries the count of a
+    whole section: must stay bit-exact."""
     npix = 320 * 180
     rng = np.random.default_rng(7)
-    # section 512 / ROW_LANES 1024 -> rl = 512: build floods of several
-    # whole rows with ragged edges so uniform and general rows interleave
+    # section 512: floods of several whole sections with ragged edges so
+    # single-run and mixed sections interleave
     parts = [
-        np.full(1400, 7, np.int32),            # flood pixel 7 (~3 rows)
-        np.full(900, 4096 + 13, np.int32),     # flood in another window
+        np.full(1400, 7, np.int32),            # flood pixel 7 (~3 sections)
+        np.full(900, 4096 + 13, np.int32),     # flood of another pixel
         rng.integers(0, npix, 700).astype(np.int32),  # general filler
         np.full(300, npix, np.int32),          # out-of-bounds sentinel run
         np.full(796, 7, np.int32),             # second flood of pixel 7
@@ -373,9 +337,9 @@ def test_kernel_uniform_rows_fast_path():
 
 
 def test_exact_kernel_uniform_rows_fast_path():
-    """Same flood shapes through EXACT_KERNEL (first=True winner marks at
-    the run's FIRST lane): z ties inside a flood must still resolve to the
-    earliest-emitted value."""
+    """Same flood shapes through EXACT_KERNEL (winner marks at each run's
+    FIRST element): z ties inside a flood must still resolve to the
+    earliest-emitted value, across sections too."""
     npix = 320 * 180
     rng = np.random.default_rng(8)
     parts = [
@@ -405,8 +369,8 @@ def test_exact_kernel_uniform_rows_fast_path():
 
 def test_kernel_pixel0_flood_eviction():
     """Flood-heavy streams (the solar-sail NaN quirk bins 35-40% of all
-    points at pixel (0,0), src/lib.rs:789-812): the pixel-0 eviction +
-    sentinel-tail skip + mixed-row window clamp must stay bit-exact, both
+    points at pixel (0,0), src/lib.rs:789-812): the pixel-0 eviction and
+    the out-of-bounds tail of each sorted section must stay bit-exact, both
     within one chunk and accumulating onto a standing canvas whose pixel 0
     already holds a value."""
     npix = 128 * 128
@@ -433,8 +397,8 @@ def test_kernel_pixel0_flood_eviction():
 
 
 def test_kernel_all_pixel0_chunk():
-    """Degenerate chunk: every point evicted -> the kernel sees only
-    sentinels and the fixup carries the whole update."""
+    """Degenerate chunk: every point evicted -> the sort sees only
+    out-of-bounds points and the fixup carries the whole update."""
     npix = 128 * 128
     n = 2048
     flat = np.zeros(n, np.int32)
@@ -464,7 +428,6 @@ def test_depth_kernel_pixel0_flood():
     (ref,) = binning.bin_chunk_depth(zbuf0, jnp.asarray(flat), jnp.asarray(z))
     (got,) = kb.bin_chunk_kernel_depth(
         zbuf0, jnp.asarray(flat), jnp.asarray(z), npix=npix, section=1 << 10,
-        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
@@ -472,9 +435,8 @@ def test_depth_kernel_pixel0_flood():
 def test_exact_kernel_pixel0_flood():
     """EXACT under a pixel-0 flood (never-winning -inf z interleaved with
     legitimate pixel-0 points): strict z-test, earliest-wins ties, exact
-    count. (EXACT deliberately does NOT evict floods — measured slower on
-    chip, docs/KERNEL_NOTES.md — so this pins the plain path's semantics
-    on the flood shape.)"""
+    count. (EXACT does not evict floods, so this pins the plain path's
+    semantics on the flood shape.)"""
     npix = 64 * 36
     rng = np.random.default_rng(23)
     n = 4096
@@ -520,7 +482,7 @@ def test_kernel_flood_gate_off_bit_exact():
         cnt, pk = kb.bin_chunk_kernel(
             jnp.zeros((npix,), jnp.uint32), jnp.zeros((npix,), jnp.uint32),
             jnp.asarray(flat), jnp.asarray(packed),
-            npix=npix, section=1 << 10, interpret=True, flood_gate=False,
+            npix=npix, section=1 << 10, flood_gate=False,
         )
         want_c, want_p = _reference(npix, flat, packed)
         np.testing.assert_array_equal(np.asarray(cnt), want_c)
@@ -542,7 +504,7 @@ def test_vmapped_bin_runs_single_pipeline():
         def f(flat, packed):
             return kb.bin_chunk_kernel(
                 jnp.zeros((npix,), jnp.uint32), jnp.zeros((npix,), jnp.uint32),
-                flat, packed, npix=npix, section=256, interpret=True,
+                flat, packed, npix=npix, section=256,
                 flood_gate=gate,
             )
         return jax.make_jaxpr(jax.vmap(f))(

@@ -381,14 +381,14 @@ def test_auto_frames_per_batch_uses_planes_kind():
     assert sizes[BinStrategy.DEPTH_KERNEL] == sizes[BinStrategy.DEPTH]
     assert sizes[BinStrategy.EXACT_KERNEL] < sizes[BinStrategy.KERNEL]
     # fidelity modes: min(2 GB / (npix*20 B) = 48 canvas-bound, the
-    # schedule-dependent work bound — 39 at the TPU 4M-point chunks,
-    # 48 at the CPU scatter-optimal 1M chunks)
+    # schedule-dependent work bound — 39 at the sort-bin 4M-point chunks,
+    # 48 at the scatter 1M chunks)
     want = min(48, int(6e9 / (lanes * chunk_steps * 12 * 3)))
     assert sizes[BinStrategy.EXACT_KERNEL] == want
 
     # the working-set bound must bite on small canvases: 256x256 with the
-    # TPU 4M-point chunk schedule (16384 lanes x 256 steps) used to
-    # estimate ~1900 frames (>60 GB of chunk buffers on a 16 GB chip)
+    # 4M-point chunk schedule (16384 lanes x 256 steps) used to estimate
+    # ~1900 frames (>60 GB of chunk buffers)
     small = presets.poisson_saturne(width=256, height=256)
     assert _auto_frames_per_batch(small, BinStrategy.KERNEL, 16384, 256) <= 64
 

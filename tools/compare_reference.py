@@ -4,14 +4,10 @@ The reference repo ships ``media/poisson-saturne.png`` — its own 10^9
 iteration, brightness -0.25, 1920x1080 output (README.md:72-73). This tool
 renders the identical workload here and reports tone-mapped agreement, the
 BASELINE.json acceptance criterion ("pixel-matching the Rust output within
-tone-map tolerance").
+tone-map tolerance"). The H100 figure is not measured yet: the reference
+PNG is not part of this repository (docs/PARITY.md).
 
-Round-1 result on TPU v5e:
-
-    MAD = 0.0020 of full scale, pixel correlation = 0.9997,
-    lit-support IoU = 0.9990
-
-Usage:  python tools/compare_reference.py [--reference PNG] [--out PNG] [--reuse]
+Usage:  python tools/compare_reference.py --reference PNG [--out PNG] [--reuse]
 
 By default the workload is re-rendered every run (the metric must reflect the
 current code); pass --reuse to compare an existing --out file instead.
@@ -25,11 +21,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 
 
-def compare(ref_path: str, our_path: str) -> dict:
-    from PIL import Image
+def _rgb8(path: str) -> np.ndarray:
+    from strange_attractor_tpu.utils.export import read_png
 
-    ref = np.asarray(Image.open(ref_path).convert("RGB")).astype(np.float64)
-    ours = np.asarray(Image.open(our_path).convert("RGB")).astype(np.float64)
+    with open(path, "rb") as f:
+        img = read_png(f.read())[..., :3]
+    if img.dtype == np.uint16:
+        img = ((img.astype(np.uint32) * 255 + 32767) // 65535).astype(np.uint8)
+    return img.astype(np.float64)
+
+
+def compare(ref_path: str, our_path: str) -> dict:
+    ref, ours = _rgb8(ref_path), _rgb8(our_path)
     if ref.shape != ours.shape:
         raise SystemExit(f"shape mismatch: {ref.shape} vs {ours.shape}")
     mad = float(np.abs(ref - ours).mean() / 255)
@@ -43,8 +46,9 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--reference", default="/root/reference/media/poisson-saturne.png")
-    ap.add_argument("--out", default="/tmp/parity_render.png")
+    ap.add_argument("--reference", required=True,
+                    help="the reference repository's media/poisson-saturne.png")
+    ap.add_argument("--out", default="parity_render.png")
     ap.add_argument("--reuse", action="store_true",
                     help="compare an existing --out file instead of re-rendering")
     ap.add_argument("--bin-strategy", default="auto",
@@ -79,8 +83,7 @@ def main():
         )
         precompile(cfg)
         t0 = time.perf_counter()
-        state = render(cfg)
-        jax.device_get(state.count.sum() if state.count is not None else state.zbuf.max())
+        state = jax.block_until_ready(render(cfg))
         lanes, chunk, nchunks = plan_schedule(cfg)
         dt = time.perf_counter() - t0
         print(f"[{args.bin_strategy}] {lanes * chunk * nchunks / dt:.3e} iters/s ({dt:.2f}s)")
